@@ -26,8 +26,13 @@ def test_stage_trace_collects():
     pcm, data = stereo_file(seed=1)
     wpc = api.WavpackOpenFileInput(data)
     buf = np.zeros(1200 * 2, np.int32)
-    with trace.collect() as stages:
-        assert api.WavpackUnpackSamples(wpc, buf, 1200) == 1200
+    # per-stage timings come from the synced stage-wise path
+    config.set_options(sync_stages=True)
+    try:
+        with trace.collect() as stages:
+            assert api.WavpackUnpackSamples(wpc, buf, 1200) == 1200
+    finally:
+        config.set_options(sync_stages=False)
     assert "entropy" in stages and "decorr" in stages
     report = trace.format_report(stages, 1200)
     assert "entropy" in report and "throughput" in report

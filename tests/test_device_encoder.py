@@ -1,4 +1,4 @@
-"""Device (TPU) lossless encoder: kernels + block assembly + public API.
+"""Device lossless encoder: kernels + block assembly + public API.
 
 Validation strategy: (a) decorr_invert is the exact inverse of the
 device decode kernel; (b) device-encoded streams decode bit-exactly on

@@ -11,7 +11,6 @@ from dataclasses import asdict
 import numpy as np
 import pytest
 
-from wvpk import config
 from wvpk.container import parse_blocks
 from wvpk.engine import decode_states
 from wvpk.ref import decode_block
@@ -122,26 +121,24 @@ def test_fuzz_case_dsd(seed):
 
 
 @pytest.mark.parametrize("seed", range(min(N_CASES, 8)))
-def test_fuzz_case_pallas(seed):
-    """Same differential check with BOTH Pallas kernels forced
-    (interpret): the engine-level fused path with the post stage folded
-    into the decorr scan — the exact program the TPU runs — including
-    hybrid, int32/wvx, float families and corrupt-stream mute/CRC arms."""
+def test_fuzz_case_lane_kernel(seed):
+    """Same differential check with the decode path forced onto the lane
+    kernel (the CUDA source compiled for the host): the engine's fused
+    program as the GPU runs it, including hybrid, int32/wvx, float
+    families and corrupt-stream mute/CRC arms."""
+    from wvpk.ops import backend
     rng = np.random.default_rng(5000 + seed)
     spec = random_spec(rng)
     n = int(rng.integers(spec.block_samples // 2, spec.block_samples * 2 + 1))
     pcm = random_pcm(rng, n, spec.nch_data, spec)
     data = encode_file(pcm, spec)
-    if rng.random() < 0.3:  # pressure the folded mute/CRC arms
+    if rng.random() < 0.3:  # pressure the mute/CRC arms
         data = bytearray(data)
         data[int(rng.integers(64, len(data)))] ^= int(rng.integers(1, 256))
         data = bytes(data)
     blocks = parse_blocks(data)
-    config.set_options(entropy_kernel="pallas", decorr_kernel="pallas")
-    try:
+    with backend._force("kernel"):
         dev = decode_states([b.state for b in blocks])
-    finally:
-        config.set_options(entropy_kernel="auto", decorr_kernel="auto")
     for blk, d in zip(blocks, dev):
         want = decode_block(blk.state)
         np.testing.assert_array_equal(d.samples, want.samples,
@@ -151,14 +148,10 @@ def test_fuzz_case_pallas(seed):
 
 
 @pytest.mark.parametrize("seed", range(min(N_CASES, 2)))
-def test_fuzz_case_dsd_pallas_corrupt(seed):
-    """Corrupt-stream differential against the PALLAS DSD kernels
-    (interpret mode off-TPU): the concealment arms — mode-1 bad-index/err
-    latch, CRC mismatch -> 0x55 mute fill — must match the oracle
-    bit-for-bit. The plain dsd family runs the XLA kernels on CPU, so
-    without this the Pallas coders would meet corrupt input for the
-    first time inside bench.py's gated hardware sweep. Cases kept tiny:
-    interpret-mode per-bit loops cost ~seconds per hundred samples."""
+def test_fuzz_case_dsd_corrupt(seed):
+    """Corrupt-stream differential for DSD modes 1 and 3: the
+    concealment arms (mode-1 bad-index/err latch, CRC mismatch -> 0x55
+    mute fill) must match the oracle bit-for-bit."""
     from wvpk.testgen import encode_dsd_file
     rng = np.random.default_rng(128100 + seed)
     mode = int(rng.choice([1, 1, 3]))
@@ -170,11 +163,7 @@ def test_fuzz_case_dsd_pallas_corrupt(seed):
                                      history_bits=int(rng.integers(1, 4))))
     data[int(rng.integers(64, len(data)))] ^= int(rng.integers(1, 256))
     blocks = parse_blocks(bytes(data))
-    config.set_options(dsd_kernel="pallas")
-    try:
-        dev = decode_states([b.state for b in blocks])
-    finally:
-        config.set_options(dsd_kernel="auto")
+    dev = decode_states([b.state for b in blocks])
     for blk, d_res in zip(blocks, dev):
         want = decode_block(blk.state)
         np.testing.assert_array_equal(d_res.samples, want.samples,

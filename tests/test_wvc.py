@@ -264,33 +264,27 @@ def test_cli_roundtrip(tmp_path):
     assert open(lossy, "rb").read() != src.read_bytes()
 
 
-def test_pallas_wvc_intervals_match_xla():
-    """The Pallas entropy kernel's wvc outputs (residuals + narrowed
-    maxcode/base) must equal the exact-semantics XLA scan's (interpret
-    mode; on TPU the same kernel compiles via Mosaic)."""
-    from wvpk.engine.staging import group_blocks
-    from wvpk.ops.entropy import entropy_decode
-    from wvpk.ops.entropy_pallas import entropy_decode_pallas
+def test_wvc_exact_under_lane_kernel_backend():
+    """Hybrid-lossless buckets run the XLA scans on every platform: with
+    the decode backend on the lane kernel, a .wvc pair still decodes to
+    the exact source with both CRCs matching the oracle."""
+    from wvpk.engine import decode_states
+    from wvpk.ops import backend
+    from wvpk.ref import decode_block
     pcm = _sig(5000, 2, seed=18)
     wv, wvc = encode(pcm, hybrid=True, bitrate=420, wvc=True,
                      block_samples=1024, md5=False)
     blks = parse_blocks(wv)
-    pair_wvc(blks, wvc)
-    b = group_blocks([x.state for x in blks])[0]
-    prof = b.profile
-    kw = dict(mono=prof.mono, hybrid=True,
-              hybrid_bitrate=prof.hybrid_bitrate,
-              hybrid_balance=prof.hybrid_balance, nsteps=prof.nsteps,
-              wvc=True)
-    r1, mc1, ba1, br1, _ = entropy_decode(
-        b.words, b.nwords_lane, b.med, b.slow, b.acc, b.delta, **kw)
-    r2, mc2, ba2, br2, _ = entropy_decode_pallas(
-        b.words, b.nwords_lane, b.med, b.slow, b.acc, b.delta,
-        interpret=True, **kw)
-    np.testing.assert_array_equal(np.asarray(r1), np.asarray(r2))
-    np.testing.assert_array_equal(np.asarray(mc1), np.asarray(mc2))
-    np.testing.assert_array_equal(np.asarray(ba1), np.asarray(ba2))
-    np.testing.assert_array_equal(np.asarray(br1), np.asarray(br2))
+    assert pair_wvc(blks, wvc) == len(blks)
+    with backend._force("kernel"):
+        dev = decode_states([x.state for x in blks])
+    for blk, d in zip(blks, dev):
+        want = decode_block(blk.state)
+        np.testing.assert_array_equal(d.samples, want.samples)
+        assert d.wvc_applied and not d.crc_error
+        assert (d.crc, d.crc_wvc) == (want.crc, want.crc_wvc)
+    np.testing.assert_array_equal(
+        np.concatenate([d.samples for d in dev]), pcm)
 
 
 def test_native_wvc_encoder_byte_identical(monkeypatch):

@@ -4,8 +4,6 @@ mixed PCM+DSD. Usage: python tools/delivery_probe.py [n_files ...]"""
 import os, sys, time
 import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/wvpk-jax-cache"))
 from bench import make_corpus, _cache_blob, _make_dsd_delivery
 from wvpk.container import parse_blocks
 from wvpk.engine import decode_states

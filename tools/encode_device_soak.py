@@ -1,7 +1,7 @@
-"""Randomized device-encode soak for the REAL chip (Pallas encode kernels).
+"""Randomized device-encode soak for the card (the XLA encode scans).
 
-Each case: random PCM + spec -> `encode_device` (Pallas kernels live on
-TPU via encode_select "auto") -> scalar-oracle decode. Gates:
+Each case: random PCM + spec -> `encode_device` (the device encode
+scans) -> scalar-oracle decode. Gates:
   - lossless: bit-exact PCM roundtrip identity (the independent oracle,
     SURVEY.md section 4) + 0 crc/mute errors;
   - hybrid: 0 crc/mute errors and RMS error <= 1.5x the HOST encoder's

@@ -1,7 +1,7 @@
-"""Hardware differential sweep: decode_states on the real TPU vs the
+"""Hardware differential sweep: decode_states on the GPU vs the
 scalar oracle, over randomized mode-matrix specs (PCM + DSD).
 
-Run with the TPU visible (default env): `python tools/hw_sweep.py [n]`.
+Run on the card: `python tools/hw_sweep.py [n]`.
 The CI suite runs the same generators CPU-side (tests/test_fuzz_differential)
 and bench.py gates a compact sweep per run (`hw_sweep_ok`); this script is
 the full-size manual version. Logic lives in wvpk.testgen.fuzzspec.

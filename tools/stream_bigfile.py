@@ -8,8 +8,6 @@ Usage: python tools/stream_bigfile.py [target_gb] [path]
 import os, resource, sys, time
 import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/wvpk-jax-cache"))
 
 
 def block_table(data: bytes):

@@ -1,4 +1,4 @@
-"""wvpk: a TPU-native WavPack decode framework (JAX/XLA/Pallas).
+"""wvpk: a GPU-native WavPack decode framework (JAX/XLA, one CUDA kernel).
 
 Built from scratch against the structural survey of the reference C# decoder
 (SURVEY.md). Host Python handles container/metadata parsing; all

@@ -8,13 +8,14 @@ many files through the lane-parallel engine and reports throughput.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import struct
 import sys
 import time
 
 import numpy as np
 
-from . import api, consts, trace
+from . import api, config, consts, trace
 from .io.pcm import format_samples
 from .io.wav import make_wav_header, write_wav
 from .report import build_report
@@ -86,6 +87,7 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
         md5er = hashlib.md5()
     buf = np.zeros(consts.SAMPLE_BUFFER_SIZE * num_channels, np.int32)
     dsf_writer = None
+    sync_was = config.get_options().sync_stages
     try:
         if out_f is not None and not raw:
             # raw mode is container-less: interleaved little-endian PCM
@@ -115,7 +117,12 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
                 out_f.write(make_wav_header(
                     max(total_samples, 0), num_channels,
                     sample_rate, bits, byteps))
-        with trace.collect() as stages:
+        # stage timings only when asked for; --trace also syncs each
+        # stage so its breakdown is per stage, at the cost of pipelining
+        timing = (trace.collect() if show_trace or report_json
+                  else contextlib.nullcontext({}))
+        config.set_options(sync_stages=sync_was or show_trace)
+        with timing as stages:
             while True:
                 got = api.WavpackUnpackSamples(wpc, buf,
                                                consts.SAMPLE_BUFFER_SIZE)
@@ -143,6 +150,7 @@ def decode_one(path: str, out_path: str | None, quiet: bool = False,
             if trailer:
                 out_f.write(trailer)
     finally:
+        config.set_options(sync_stages=sync_was)
         if out_f is not None:
             out_f.close()
 
@@ -354,7 +362,7 @@ def encode_one(path: str, out_path: str, *, preset: str, block: int,
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        prog="wvpk", description="TPU-native WavPack decoder")
+        prog="wvpk", description="GPU-native WavPack decoder")
     p.add_argument("inputs", nargs="+", help=".wv input file(s)")
     p.add_argument("-o", "--output", help="output .wav path (single input)")
     p.add_argument("-q", "--quiet", action="store_true")

@@ -4,7 +4,7 @@ The reference (Quake4/WavPackDecoder) is decode-only; this module goes
 beyond parity by promoting the framework's heavily-fuzzed test-vector
 encoder (wvpk/testgen/encoder.py, multichannel.py) to a supported
 surface: ``wvpk.encode.encode(pcm, ...) -> bytes``, the device
-(TPU) variant ``encode_device``, the bounded-memory file streamer
+variant ``encode_device``, the bounded-memory file streamer
 ``encode_wav_file`` and a CLI encode mode
 (``python -m wvpk.cli --encode in.wav -o out.wv [--device]
 [--streaming]``).
@@ -347,7 +347,7 @@ def _spec_from_stats(st: dict, *, sample_rate: int = 44100,
 
 
 def encode_device(pcm: np.ndarray, **options) -> bytes:
-    """Encode integer PCM to a WavPack stream ON DEVICE (TPU).
+    """Encode integer PCM to a WavPack stream ON DEVICE.
 
     The two hot loops (decorrelation inversion, entropy word coding) run
     lane-parallel over the file's blocks (`ops/encode_kernels.py`);
@@ -417,7 +417,7 @@ def encode_wav_file(in_path, out_path, *, device: bool = False,
     Windows are block-aligned. Host windows thread the encoder's
     carried adaptive state across the boundary (one-window files are
     byte-identical to `encode`); `device=True` uses the lane-parallel
-    TPU kernels, whose blocks are independent (fresh- or warmup-seeded)
+    device scans, whose blocks are independent (fresh- or warmup-seeded)
     lanes, so device output is byte-identical to `encode_device` for
     ANY window split. >2ch input emits multichannel segments
     (per-stream carried state on host; independent lanes on device).

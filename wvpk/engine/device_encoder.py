@@ -1,4 +1,4 @@
-"""Device (TPU) encode: block assembly around the encode kernels.
+"""Device encode: block assembly around the encode kernels.
 
 `encode_blocks_device(pcm, spec)` produces standard WavPack block byte
 strings like `testgen.encoder.encode_blocks`, but runs the hot loops
@@ -263,7 +263,8 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
     block's zero padding, so a window must pad like the batch for its
     bytes to stay split-invariant.
     """
-    from ..ops.encode_select import invert_any, words_any
+    from ..ops.encode_kernels import decorr_invert_warm, \
+        entropy_encode_words, hybrid_encode_scan
 
     hybrid = bool(spec.hybrid)
     if hybrid and (spec.float_data or spec.int32_mode is not None):
@@ -302,13 +303,11 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
         if mesh is not None:
             from ..parallel.mesh import sharded_invert_warm_state
             wa_f, wb_f, ha_f, hb_f = sharded_invert_warm_state(
-                targ_d[:K], terms16, deltas16, nt, mesh, mono=mono,
-                static_terms=tuple(spec.terms))
+                targ_d[:K], terms16, deltas16, nt, mesh, mono=mono)
         else:
-            _, (wa_f, wb_f, ha_f, hb_f) = invert_any(
+            _, (wa_f, wb_f, ha_f, hb_f) = decorr_invert_warm(
                 targ_d[:K], terms16, deltas16, nt,
-                wfa, wfb, hfa, hfb, mono=mono,
-                static_terms=tuple(spec.terms), with_state=True)
+                wfa, wfb, hfa, hfb, mono=mono, with_state=True)
         m_fin = K & 7
         rot = (np.arange(8) + m_fin) & 7          # _rotate_ring order
         wfa, wfb = np.asarray(wa_f), np.asarray(wb_f)
@@ -373,29 +372,24 @@ def encode_blocks_device(pcm: np.ndarray, spec: EncodeSpec,
                 targ_d, terms16, deltas16, nt, med0, slow0, acc0, delta0,
                 nvals, w0a, w0b, h0a, h0b, mesh, mono=mono,
                 hybrid_bitrate=bool(spec.hybrid_bitrate),
-                hybrid_balance=bool(spec.hybrid_balance),
-                static_terms=tuple(spec.terms))
+                hybrid_balance=bool(spec.hybrid_balance))
         else:
-            from ..ops.encode_select import hybrid_scan_any
-            out = hybrid_scan_any(
+            out = hybrid_encode_scan(
                 targ_d, terms16, deltas16, nt, med0, slow0, acc0, delta0,
                 nvals, w0a, w0b, h0a, h0b, mono=mono,
                 hybrid_bitrate=bool(spec.hybrid_bitrate),
-                hybrid_balance=bool(spec.hybrid_balance),
-                static_terms=tuple(spec.terms))
+                hybrid_balance=bool(spec.hybrid_balance))
         segs, recon_dev = out[:9], out[9]
     elif mesh is not None:
         from ..parallel.mesh import sharded_encode_scans
         segs = sharded_encode_scans(targ_d, terms16, deltas16, nt, med0,
                                     nvals, mesh, mono=mono,
-                                    static_terms=tuple(spec.terms),
                                     seeds=(w0a, w0b, h0a, h0b))
     else:
-        res = invert_any(targ_d, terms16, deltas16, nt,
-                         w0a, w0b, h0a, h0b, mono=mono,
-                         static_terms=tuple(spec.terms))
+        res = decorr_invert_warm(targ_d, terms16, deltas16, nt,
+                                 w0a, w0b, h0a, h0b, mono=mono)
         words = res.transpose(0, 2, 1).reshape(T * C, L)
-        segs = words_any(words, med0, nvals, mono=mono)
+        segs = entropy_encode_words(words, med0, nvals, mono=mono)
     _t = trace.mark("enc_scan", _t)
     from ..config import get_options
     recon = crc_acc = None

@@ -101,27 +101,6 @@ class Bucket:
     # header CRCs (cover the EXACT samples)
     wvc_words: np.ndarray | None = None
     wvc_crc: np.ndarray | None = None
-    # static (chain, start, stop, num_terms_max) lane segments for the
-    # per-class decorr specialization on mixed-chain buckets; None when
-    # the bucket is uniform (static_terms covers it) or nothing qualifies
-    chain_segments: tuple | None = None
-
-    @property
-    def static_terms(self) -> tuple | None:
-        """The bucket's uniform decorr term chain, or None when lanes
-        differ. Uniform chains (one encoder preset per corpus — the
-        common case) let the Pallas decorr kernel compile a per-class
-        specialized unroll (~2.6x its generic compute on deep chains)."""
-        nt = np.asarray(self.num_terms)
-        if nt.size == 0 or not (nt == nt[0]).all():
-            return None
-        n = int(nt[0])
-        if n == 0:
-            return None
-        t = np.asarray(self.terms)[:, :n]
-        if not (t == t[0]).all():
-            return None
-        return tuple(int(x) for x in t[0])
 
 
 def _fixup_params(st: BlockState) -> tuple[int, tuple[int, int, int]]:
@@ -151,54 +130,8 @@ def _fixup_params(st: BlockState) -> tuple[int, tuple[int, int, int]]:
     return shift + zeros + sent + ones + dups, (0, 0, 0)
 
 
-def _chain_of(st: BlockState) -> tuple:
-    return tuple(int(t) for t in st.terms[:st.num_terms])
-
-
-def _order_by_chain(states: list[BlockState], indices: list[int],
-                    mono: bool):
-    """Sort a bucket's lanes so same-chain lanes are contiguous and
-    compute the static decorr segments: big uniform-chain runs get a
-    per-class specialized kernel inside the SAME fused program (mixed
-    corpora otherwise fall back to the ~2.6x-slower generic unroll for
-    every lane); everything else coalesces into one generic tail
-    segment. Lane order inside a bucket is free — results map back
-    through Bucket.states/indices."""
-    opts = get_options()
-    chains = [_chain_of(st) for st in states]
-    counts: dict[tuple, int] = {}
-    for c in chains:
-        counts[c] = counts.get(c, 0) + 1
-    if len(counts) == 1:
-        return states, indices, None     # uniform: static_terms covers it
-    specializable = sorted(
-        (c for c, n in counts.items()
-         if n >= opts.decorr_segment_min and len(c) > 0
-         and not (mono and any(t < 0 for t in c))),
-        key=lambda c: -counts[c])[:opts.decorr_segment_classes]
-    if not specializable:
-        return states, indices, None
-    rank = {c: k for k, c in enumerate(specializable)}
-    order = sorted(range(len(states)),
-                   key=lambda i: rank.get(chains[i], len(rank)))
-    states = [states[i] for i in order]
-    indices = [indices[i] for i in order]
-    segments, pos = [], 0
-    for c in specializable:
-        segments.append((c, pos, pos + counts[c], len(c)))
-        pos += counts[c]
-    if pos < len(states):
-        tail_ntm = max(len(chains[i]) for i in order[pos:])
-        segments.append((None, pos, len(states), max(tail_ntm, 1)))
-    return states, indices, tuple(segments)
-
-
 def stage(states: list[BlockState], indices: list[int]) -> Bucket:
     prof = profile_of(states[0])
-    states, indices, chain_segments = _order_by_chain(
-        states, indices, prof.mono)
-    L = len(states)
-    cap16 = consts.MAX_NTERMS
     words, _ = pack_streams([st.wvbits or b"" for st in states])
     chans = 1 if prof.mono else 2
     nsamples = np.asarray([st.header.block_samples for st in states], np.int32)
@@ -233,7 +166,6 @@ def stage(states: list[BlockState], indices: list[int]) -> Bucket:
         sent_bits=np.asarray([st.int32_sent_bits for st in states], np.int32),
         max_width=np.asarray([st.int32_max_width for st in states], np.int32),
         wvx_words=None, wvx_start_bit=None, wvx_start_bc=None,
-        chain_segments=chain_segments,
     )
     if prof.has_wvc:
         wvc_words, _ = pack_streams([st.wvcbits or b"" for st in states])

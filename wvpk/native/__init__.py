@@ -1,8 +1,8 @@
 """Native host runtime (C, loaded via ctypes).
 
-Lazily compiles csrc/wvpk_host.c into a cached shared object on first use;
-every entry point has a pure-Python fallback so the framework works
-compiler-less. The device compute path stays JAX/XLA — this tier covers
+Lazily compiles csrc/wvpk_host.c into a shared object on first use, kept
+in the checkout's `build/` directory (BUILD_DIR); every entry point has a
+pure-Python fallback so the framework works compiler-less. The device compute path stays JAX/XLA — this tier covers
 the host side (container scan, bitstream staging memcpy fan-in).
 """
 
@@ -17,6 +17,11 @@ import sys
 import numpy as np
 
 _SRC = os.path.join(os.path.dirname(__file__), "csrc", "wvpk_host.c")
+# compiled libraries (this module's and ops/lanes.py's), one per source
+# version; git-ignored
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "build")
 _lib = None
 _tried = False
 
@@ -26,10 +31,8 @@ FIELDS_PER_HEADER = 8
 def _build() -> ctypes.CDLL | None:
     src = open(_SRC, "rb").read()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    cache = os.environ.get("WVPK_NATIVE_CACHE",
-                           os.path.expanduser("~/.cache/wvpk-native"))
-    os.makedirs(cache, exist_ok=True)
-    so_path = os.path.join(cache, f"wvpk_host_{tag}.so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"wvpk_host_{tag}.so")
     if not os.path.exists(so_path):
         cc = os.environ.get("CC", "cc")
         tmp = so_path + f".tmp{os.getpid()}"
@@ -134,10 +137,8 @@ PSTATE_INTS = 21  # term,delta,wa,wb,m,sa[8],sb[8] per pass
 def _build_encode() -> ctypes.CDLL | None:
     src = open(_ENC_SRC, "rb").read()
     tag = hashlib.sha256(src).hexdigest()[:16]
-    cache = os.environ.get("WVPK_NATIVE_CACHE",
-                           os.path.expanduser("~/.cache/wvpk-native"))
-    os.makedirs(cache, exist_ok=True)
-    so_path = os.path.join(cache, f"wvpk_encode_{tag}.so")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so_path = os.path.join(BUILD_DIR, f"wvpk_encode_{tag}.so")
     if not os.path.exists(so_path):
         cc = os.environ.get("CC", "cc")
         tmp = so_path + f".tmp{os.getpid()}"

@@ -1,4 +1,4 @@
-"""Device-side decode kernels (JAX/XLA; Pallas where profiling demands).
+"""Device-side decode kernels (JAX/XLA, and the CUDA lane kernel).
 
 Layout convention: lanes = blocks (the embarrassingly-parallel axis, see
 SURVEY.md section 2.3); every kernel is vectorized over a (L,) lane axis and
@@ -11,22 +11,12 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-# Explicit platform override (e.g. WVPK_PLATFORM=cpu to keep a decode off
-# the TPU); takes precedence over plugin-forced platform lists.
-_platform = os.environ.get("WVPK_PLATFORM")
-if _platform:
-    jax.config.update("jax_platforms", _platform)
-
-# Persistent compilation cache: bucket profiles recompile once per machine,
-# not once per process. TPU only — XLA:CPU AOT entries embed machine
-# features and cross-process reloads warn about (and may SIGILL on)
-# mismatches; CPU compiles are fast since the kernels scan rather than
-# unroll their inner slots.
-_plat = (_platform or os.environ.get("JAX_PLATFORMS") or "").lower()
-_cache_dir = os.environ.get(
-    "WVPK_COMPILE_CACHE", os.path.expanduser("~/.cache/wvpk-xla"))
-if _cache_dir and "cpu" not in _plat:
-    _cache_dir = os.path.join(_cache_dir, _plat.replace(",", "-") or "default")
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+# Persistent compilation cache: bucket profiles compile once per checkout,
+# not once per process. JAX reads JAX_COMPILATION_CACHE_DIR itself; without
+# it the cache is the checkout's `.jax_cache` directory (git-ignored).
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)

@@ -1,4 +1,4 @@
-"""Device-side (TPU) lossless ENCODE kernels.
+"""Device-side lossless ENCODE kernels (XLA scans).
 
 The reference has no encoder at all; this goes beyond parity with a
 lane-parallel encode path built on the same two hot loops as decode,

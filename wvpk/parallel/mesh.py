@@ -1,11 +1,12 @@
 """Device mesh + lane sharding for batch decode.
 
 Blocks are self-seeded (every block's metadata carries its decorr/entropy
-state, SURVEY.md section 2.3), so the multi-chip story is pure data
+state, SURVEY.md section 2.3), so the multi-device story is pure data
 parallelism over the lane (block) axis with ZERO collectives on the hot
-path: shard_map runs each device's Pallas/XLA program on its lane shard
-(a Pallas custom call is opaque to the SPMD partitioner, so shard_map is
-the correct structure, not sharding propagation). Covers every codec
+path: shard_map runs each device's program on its lane shard (the lane
+kernel is an FFI call, opaque to the SPMD partitioner, so shard_map is
+the correct structure, not sharding propagation). The mesh is flat:
+every card reaches every other at the same rate. Covers every codec
 path: plain/hybrid/float PCM via fused_decode, int32+wvx via
 fused_decode_wvx, and DSD modes 1/3 via the packed DSD group kernels.
 """
@@ -80,17 +81,13 @@ def sharded_decode_bucket(b: Bucket, mesh: Mesh):
         + (_WVC_NAMES if prof.has_wvc else [])
     arrs, L = shard_bucket_arrays(b, mesh, names)
     args = [arrs[n] for n in names]
-    ntm = int(np.asarray(b.num_terms).max())
-    from ..ops.decorr_select import should_specialize
-    stt = b.static_terms if should_specialize() else None
     if prof.has_wvc:
         fn = partial(fused_decode_wvc,
                      mono=prof.mono,
                      hybrid_bitrate=prof.hybrid_bitrate,
                      hybrid_balance=prof.hybrid_balance,
                      int32_expand=prof.is_int32,
-                     nsteps=prof.nsteps, num_terms_max=ntm,
-                     static_terms=stt)
+                     nsteps=prof.nsteps)
         out_specs = (P(None, LANE_AXIS, None), P(LANE_AXIS), P(LANE_AXIS),
                      P(LANE_AXIS))
     elif prof.has_wvx:
@@ -104,8 +101,7 @@ def sharded_decode_bucket(b: Bucket, mesh: Mesh):
                      hybrid_bitrate=prof.hybrid_bitrate,
                      hybrid_balance=prof.hybrid_balance,
                      has_false_stereo=bool(fs.any()),
-                     nsteps=prof.nsteps, num_terms_max=ntm,
-                     static_terms=stt)
+                     nsteps=prof.nsteps)
         out_specs = (P(None, LANE_AXIS, None), P(LANE_AXIS), P(LANE_AXIS),
                      P(LANE_AXIS))
     else:
@@ -115,8 +111,7 @@ def sharded_decode_bucket(b: Bucket, mesh: Mesh):
                      hybrid_balance=prof.hybrid_balance,
                      is_float=prof.is_float,
                      int32_expand=prof.is_int32,
-                     nsteps=prof.nsteps, num_terms_max=ntm,
-                     static_terms=stt)
+                     nsteps=prof.nsteps)
         out_specs = (P(None, LANE_AXIS, None), P(LANE_AXIS), P(LANE_AXIS))
     in_specs = tuple(P(LANE_AXIS, *([None] * (a.ndim - 1))) for a in args)
     sharded = shard_map(fn, mesh=mesh, in_specs=in_specs,
@@ -223,14 +218,11 @@ def shard_lanes_call(fn, args, mesh: Mesh, out_lane_axes: tuple[int, ...]):
 
 def sharded_encode_scans(targ, terms, deltas, num_terms, med0, nvals,
                          mesh: Mesh, *, mono: bool,
-                         static_terms: tuple | None = None,
                          seeds: tuple | None = None):
     """Run the device ENCODE scans lane-sharded over the mesh: pure
     data parallelism like decode — blocks are independent lanes, zero
     hot-path collectives. Lanes padded to a mesh multiple by
-    replicating lane 0; outputs unpadded. Kernel selection (Pallas on
-    TPU / XLA scans elsewhere) rides ops/encode_select inside the
-    per-device program. `seeds` is an optional (w0a, w0b, h0a, h0b)
+    replicating lane 0; outputs unpadded. `seeds` is an optional (w0a, w0b, h0a, h0b)
     warm decorr state per lane (fresh zero seeds otherwise). Returns
     the same 9-tuple as entropy_encode_words (segments + final pending
     state)."""
@@ -238,7 +230,8 @@ def sharded_encode_scans(targ, terms, deltas, num_terms, med0, nvals,
 
     from jax.experimental.shard_map import shard_map
 
-    from ..ops.encode_select import invert_any, words_any
+    from ..ops.encode_kernels import decorr_invert_warm, \
+        entropy_encode_words
 
     n = mesh.devices.size
     T, L, C = targ.shape
@@ -269,10 +262,9 @@ def sharded_encode_scans(targ, terms, deltas, num_terms, med0, nvals,
 
     def fn(tg, tm, dl, nt, md, nv, wa, wb, ha, hb):
         Ls = tg.shape[1]
-        res = invert_any(tg, tm, dl, nt, wa, wb, ha, hb,
-                         mono=mono, static_terms=static_terms)
+        res = decorr_invert_warm(tg, tm, dl, nt, wa, wb, ha, hb, mono=mono)
         words = res.transpose(0, 2, 1).reshape(T * C, Ls)
-        return words_any(words, md, nv, mono=mono)
+        return entropy_encode_words(words, md, nv, mono=mono)
 
     out_specs = tuple([P(None, LANE_AXIS)] * 5 + [P(LANE_AXIS)] * 4)
     sharded = shard_map(partial(fn), mesh=mesh, in_specs=specs,
@@ -282,8 +274,7 @@ def sharded_encode_scans(targ, terms, deltas, num_terms, med0, nvals,
 
 
 def sharded_invert_warm_state(targ, terms, deltas, num_terms, mesh: Mesh,
-                              *, mono: bool,
-                              static_terms: tuple | None = None):
+                              *, mono: bool):
     """Lane-shard the warm-seeding lookahead scan: run the decorr
     inversion over each block's first K samples from fresh seeds and
     return ONLY the final per-lane decorr state (wa, wb, ha, hb) —
@@ -292,7 +283,7 @@ def sharded_invert_warm_state(targ, terms, deltas, num_terms, mesh: Mesh,
     lane padding contract as the other sharded encode entry points."""
     from jax.experimental.shard_map import shard_map
 
-    from ..ops.encode_select import invert_any
+    from ..ops.encode_kernels import decorr_invert_warm
 
     n = mesh.devices.size
     K, L, C = targ.shape
@@ -316,9 +307,8 @@ def sharded_invert_warm_state(targ, terms, deltas, num_terms, mesh: Mesh,
         Ls = tg.shape[1]
         z16 = jnp.zeros((Ls, 16), jnp.int64)
         z168 = jnp.zeros((Ls, 16, 8), jnp.int64)
-        _, state = invert_any(tg, tm, dl, nt, z16, z16, z168, z168,
-                              mono=mono, static_terms=static_terms,
-                              with_state=True)
+        _, state = decorr_invert_warm(tg, tm, dl, nt, z16, z16, z168, z168,
+                                      mono=mono, with_state=True)
         return state
 
     out_specs = (P(LANE_AXIS, None), P(LANE_AXIS, None),
@@ -332,8 +322,7 @@ def sharded_invert_warm_state(targ, terms, deltas, num_terms, mesh: Mesh,
 def sharded_hybrid_encode_scan(targ, terms, deltas, num_terms, med0,
                                slow0, acc0, delta0, nvals, w0a, w0b,
                                h0a, h0b, mesh: Mesh, *, mono: bool,
-                               hybrid_bitrate: bool, hybrid_balance: bool,
-                               static_terms: tuple | None = None):
+                               hybrid_bitrate: bool, hybrid_balance: bool):
     """Lane-shard the fused HYBRID encode scan (ops/encode_kernels.py::
     hybrid_encode_scan) over the mesh. Same data-parallel structure as
     the lossless path: each block is an independent lane (the lossy
@@ -344,7 +333,7 @@ def sharded_hybrid_encode_scan(targ, terms, deltas, num_terms, med0,
 
     from jax.experimental.shard_map import shard_map
 
-    from ..ops.encode_select import hybrid_scan_any
+    from ..ops.encode_kernels import hybrid_encode_scan
 
     n = mesh.devices.size
     L = targ.shape[1]
@@ -367,10 +356,9 @@ def sharded_hybrid_encode_scan(targ, terms, deltas, num_terms, med0,
     args = [jax.device_put(a, NamedSharding(mesh, s))
             for a, s in zip(raw, specs)]
 
-    fn = partial(hybrid_scan_any, mono=mono,
+    fn = partial(hybrid_encode_scan, mono=mono,
                  hybrid_bitrate=hybrid_bitrate,
-                 hybrid_balance=hybrid_balance,
-                 static_terms=static_terms)
+                 hybrid_balance=hybrid_balance)
     out_specs = tuple([P(None, LANE_AXIS)] * 5 + [P(LANE_AXIS)] * 4
                       + [P(None, LANE_AXIS, None)])
     sharded = shard_map(fn, mesh=mesh, in_specs=specs,

@@ -1,4 +1,4 @@
-"""Scalar CPU oracle decoder (golden model for the TPU pipeline)."""
+"""Scalar CPU oracle decoder (golden model for the device pipeline)."""
 
 from .oracle import OracleBitstream, WordsState, decode_block, unpack_samples
 

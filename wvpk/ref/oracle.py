@@ -1,4 +1,4 @@
-"""Scalar oracle decoder: the golden model the TPU pipeline must match.
+"""Scalar oracle decoder: the golden model the device pipeline must match.
 
 A from-scratch Python implementation of the WavPack 4/5 decode semantics
 documented in SURVEY.md sections 2-3 (reference call sites cited per

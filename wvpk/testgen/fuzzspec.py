@@ -1,9 +1,9 @@
 """Randomized mode-matrix spec/signal generators + differential sweep.
 
 Shared by the CI differential fuzzer (tests/test_fuzz_differential.py,
-CPU interpret mode), the standalone hardware sweep (tools/hw_sweep.py)
-and bench.py's gated `hw_sweep_ok` check, so the exact same randomized
-coverage runs against the real-TPU Pallas kernels that ship.
+on the CPU), the standalone hardware sweep (tools/hw_sweep.py) and
+bench.py's gated `hw_sweep_ok` check, so the exact same randomized
+coverage runs against the CUDA lane kernel that ships.
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ def run_hw_sweep(n_cases: int = 30, n_dsd: int = 8,
                  corrupt: bool = True, verbose: bool = True,
                  seed_base: int = 7000, n_mc: int = 2, n_wvc: int = 4):
     """Differential sweep of decode_states vs the scalar oracle on the
-    CURRENT backend (real kernels on TPU). Returns (fails, blocks).
+    CURRENT backend (the lane kernel on the GPU). Returns (fails, blocks).
     `seed_base` selects a disjoint randomized case pool (soak runs use
     fresh bases; PCM seeds are seed_base+i, DSD seeds seed_base+1000+i,
     multichannel seeds seed_base+2000+i, wvc seeds seed_base+3000+i)."""
